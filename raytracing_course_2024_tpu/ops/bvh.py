@@ -32,7 +32,7 @@ import numpy as np
 
 from ..scene.types import TRI, SceneArrays, SceneStatics
 
-log = logging.getLogger("rt_tpu")
+log = logging.getLogger("rt")
 
 LEAF_SIZE = 4
 NUM_BINS = 16

@@ -1,34 +1,20 @@
-"""TPU-friendly table gathers.
+"""Packed-table gathers for the hot loop.
 
-Profiling on v5e showed that the naive patterns are catastrophic in the hot
-loop: gathering ``(B, 3)`` rows from an ``(N, 3)`` table and slicing columns
-costs ~10 ms per 2M lanes, because any array with a tiny minor dimension is
-lane-padded to 128 (T(8,128) tiling) and every column slice is a relayout.
-
-Rules used here (measured, see bench notes in git history):
-
-* store gatherable tables TRANSPOSED and PACKED: one ``(C, N)`` f32 array
-  whose rows are scalar attribute columns; gathered results are ``(C, B)``
-  whose *row* reads are free (major-dim slicing);
-* small tables (N <= ONE_HOT_MAX): one-hot einsum ``(B,N) x (C,N) -> (C,B)``
-  -- fuses into a single VPU pass, ~6 ms for 16 cols x 2M lanes even at
-  N=1024 (plain per-column gathers explode to >250 ms there);
-* large tables (BVH nodes, 100k+ prim scenes): ``packed[:, idx]`` -- XLA's
-  axis-1 take stays ~28 ms for 16 cols x 2M lanes where per-column gathers
-  take 455 ms.
+Gatherable tables are stored TRANSPOSED and PACKED: one ``(C, N)`` f32
+array whose rows are scalar attribute columns, so one gather serves every
+attribute of a primitive and each gathered row is a contiguous (B,) array.
 
 Integer attributes ride in the f32 pack (exact up to 2^24; prim ids, type
-ids and counts all fit).
+ids and counts all fit). Every path below returns the table's values
+bit-exactly: selects and takes move values, they do no arithmetic on them.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-SELECT_MAX = 64  # per-row unrolled where-chains below this (fully fused)
-ONE_HOT_MAX = 1024
+SELECT_MAX = 64  # per-row unrolled where-chains up to this table size
 
 
 def pack_rows_host(*cols) -> np.ndarray:
@@ -39,17 +25,12 @@ def pack_rows_host(*cols) -> np.ndarray:
 def take_packed(packed: jnp.ndarray, idx: jnp.ndarray):
     """Gather columns of a (C, N) pack at ``idx`` (any shape).
 
-    Returns a TUPLE of C arrays shaped like ``idx`` -- deliberately not a
-    stacked (C, B) array: row extraction from a T(8,128)-tiled 2D array is a
-    sublane relayout (~0.4 ms per row at 2M lanes), whereas independent (B,)
-    values fuse straight into their consumers.
+    Returns a TUPLE of C arrays shaped like ``idx`` -- independent (B,)
+    values that fuse straight into their consumers.
 
-    Strategy by table size (measured on v5e, see ops/gather.py header):
-      n <= SELECT_MAX   per-row fused compare-select chains (zero
-                        materialization; C*n*B cheap VPU selects)
-      n <= ONE_HOT_MAX  one-hot einsum to (C, B), then row unpack (pays the
-                        relayout, still ~40x faster than per-column gathers)
-      else              axis-1 take (BVH-scale tables), then row unpack
+      n <= SELECT_MAX   per-row compare-select chains against constants
+                        (the table folds into the fused consumer)
+      else              axis-1 take, then row unpack
     """
     n = packed.shape[1]
     c = packed.shape[0]
@@ -63,9 +44,5 @@ def take_packed(packed: jnp.ndarray, idx: jnp.ndarray):
                 out = jnp.where(flat == j, col[j], out)
             rows.append(out.reshape(idx.shape))
         return tuple(rows)
-    if n <= ONE_HOT_MAX:
-        oh = jax.nn.one_hot(flat, n, dtype=packed.dtype)  # (B, N)
-        out = jnp.einsum("bn,cn->cb", oh, packed)
-    else:
-        out = packed[:, flat]
+    out = packed[:, flat]
     return tuple(out[ci].reshape(idx.shape) for ci in range(c))

@@ -12,8 +12,8 @@ lifetime. Determinism there needs a stream keyed by the *work item*:
 
 implemented as two rounds of a 32-bit finalizer ("lowbias32", Wellons'
 exhaustively-searched avalanche constants; same construction family as
-splitmix/murmur3 fmix). ~12 VPU u32 ops per draw, no cross-lane state --
-the TPU-native shape of a counter-based generator. Statistical quality is
+splitmix/murmur3 fmix). ~12 u32 ops per draw, no cross-lane state -- pure
+elementwise work that fuses into its consumers. Statistical quality is
 pinned by tests/test_wavefront.py (moments + lag correlations) and by the
 physics tests that run through the wavefront engine (furnace, mirror).
 

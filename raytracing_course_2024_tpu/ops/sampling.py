@@ -5,7 +5,7 @@ a uniform pick among {cosine-weighted, GGX-VNDF, light-surface} components
 (MixDistribution, distributions.rs:187-202), with the mixture pdf = average
 of component pdfs, and the *light* pdf evaluated geometrically along the
 sampled ray -- summed over every light-primitive hit (distributions.rs:
-160-184) -- rather than with shadow rays. TPU-first changes:
+160-184) -- rather than with shadow rays. Batch-first changes:
 
 * counter-based threefry keys replace the per-row Xoshiro stream
   (src/rendering.rs:50-51);
@@ -83,13 +83,12 @@ _RNG_BITS = int(_os.environ.get("RT_RNG_BITS", "32"))
 def uniform_rows(key: jax.Array, rows: int, b: int):
     """``rows`` independent U(0,1) vectors of length b from ONE threefry
     sweep. Drawn flat and split with static 1-D slices -- contiguous and
-    free, unlike row reads of a (rows, b) 2D array (a sublane relayout per
-    row on TPU).
+    free, unlike row reads of a (rows, b) 2D array.
 
     RT_RNG_BITS=16 packs TWO 16-bit uniforms per threefry u32 (65536
     levels -- far below MC noise at any practical spp; verified bias-free
-    at 256 spp). Measured a wash on v5e (the lo/hi concatenate pass eats
-    the halved PRNG cost), so full 32-bit draws stay the default."""
+    at 256 spp). Full 32-bit draws stay the default; the 16-bit packing
+    has not been measured on the GPU."""
     if _RNG_BITS >= 24:
         flat = jax.random.uniform(key, (rows * b,), jnp.float32)
         return [jax.lax.slice(flat, (i * b,), ((i + 1) * b,)) for i in range(rows)]
@@ -495,7 +494,7 @@ def sample_mixture(
     """Returns (l Vec3, pdf (B,), ok (B,)).
 
     Rejection contract per the reference: resample until pdf > 0 and
-    l . n_shade > 0 (rendering.rs:102-110). TPU-first formulation: the
+    l . n_shade > 0 (rendering.rs:102-110). Batch-first formulation: the
     reference's sequential retry loop becomes ``max_tries`` *parallel* iid
     candidates (flattened to a K*B lane batch -- one fused pass instead of
     K device loop trips); the first accepted candidate per lane is selected,
@@ -569,8 +568,8 @@ def sample_mixture(
         # See the docstring for the (test-pinned) deviation this implies.
         ok = (cand.dot(tile3(n_shade)) > 0.0) & (cand.dot(n_t) > 0.0)
 
-    # --- first accepted candidate per lane, as a masked sum (a per-lane
-    # gather over the K axis is a measured ~30 ms relayout at 2M lanes) ---
+    # --- first accepted candidate per lane, as a masked sum over the K
+    # axis (no per-lane gather) ---
     ok2 = ok.reshape(k, b)
     is_first = ok2 & (jnp.cumsum(ok2.astype(jnp.int32), axis=0) == 1)
     w = is_first.astype(jnp.float32)

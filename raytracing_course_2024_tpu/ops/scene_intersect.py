@@ -1,6 +1,6 @@
 """Scene-level nearest-hit queries and surface shading data.
 
-Two-phase design (TPU-first): a cheap *t-only* sweep finds the nearest
+Two-phase design: a cheap *t-only* sweep finds the nearest
 primitive per ray (dense over the SoA table, chunked through a ``lax.scan``
 so peak memory is B x CHUNK regardless of scene size), then a *detail* pass
 re-intersects only the winning primitive per ray to produce normals and
@@ -149,31 +149,18 @@ def _prim_ts(ro_b: Vec3, rd_b: Vec3, prim: PrimRef, statics: SceneStatics,
     return t
 
 
-import os as _os
-
-_NO_PALLAS = bool(_os.environ.get("RT_NO_PALLAS"))
-
-
 def nearest_hit_dense(
     ro: Vec3, rd: Vec3, scn: SceneArrays, statics: SceneStatics, tmin=0.0
 ) -> SceneHit:
     """Brute-force nearest hit over the finite table + planes.
 
-    Small all-triangle scenes take the fused Pallas kernel
-    (ops/pallas_intersect.py) -- single VMEM pass, no (B, N) t-matrix in
-    HBM; everything else takes the chunked XLA sweep.
-
-    Off-TPU the kernel runs in interpret mode, whose internals can't carry
-    vma annotations -- under shard_map(check_vma=True) with varying rays
-    (jax 0.9: even a literal constant in the interpreted body trips the
-    checker) this falls back to the XLA sweep. Compiled TPU kernels are
-    unaffected (the body is opaque; outputs declare vma via out_shape)."""
+    Small all-triangle scenes (``scn.tri_pack`` set) take the fused Pallas
+    kernel (ops/pallas_intersect.py) when the program is compiled for the
+    GPU; everything else, and every CPU program, takes the chunked XLA
+    sweep below."""
     n = scn.ptype.shape[0]
 
-    interpret_under_shard_map = (
-        jax.default_backend() != "tpu" and len(jax.typeof(ro.x).vma) > 0
-    )
-    if scn.tri_pack is not None and not _NO_PALLAS and not interpret_under_shard_map:
+    if scn.tri_pack is not None and jax.default_backend() == "gpu":
         from .pallas_intersect import pallas_dense_nearest
 
         best_t, best_idx = pallas_dense_nearest(ro, rd, scn.tri_pack, tmin)
@@ -261,8 +248,8 @@ def surface_detail(
     are flipped to face the incoming ray (src/geometry.rs:114-126 triangles;
     src/geometry.rs:170-189 box entry/exit).
 
-    All per-ray attributes come from ONE packed-table gather (ops/gather.py);
-    naive (B, 3) row gathers are a measured 5-10x slowdown on TPU."""
+    All per-ray attributes come from ONE packed-table gather
+    (ops/gather.py) instead of one (B, 3) row gather per attribute."""
     from ..scene.types import PrimCol as PC
     from .gather import take_packed
 

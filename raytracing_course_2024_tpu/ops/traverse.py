@@ -8,19 +8,17 @@ text scenes).
 
 A second backend -- the sorted-pair *grouped* traversal, where
 (ray, treelet) pairs were grouped by treelet with one payload-carrying
-``lax.sort`` so geometry moved once per 128-pair block -- was built in
-rounds 2-4 and DELETED in round 5 after the hardware decision A/Bs
-(ROUNDLOG_r05.md session 3): it lost end-to-end in every configuration,
-including with the regenerating wavefront engine at ~96.6% occupancy
-(practice7_3: grouped 3.70-3.82 vs treelet 4.15 Mrays/s; practice7_2:
-4.20 vs 4.24). Its fixed sort/cull cost per bounce never amortized
+``lax.sort`` so geometry moved once per 128-pair block -- was DELETED
+after its A/Bs on the accelerator this program was first tuned on: it
+lost end-to-end in every configuration, including with the regenerating
+wavefront engine. Its fixed sort/cull cost per bounce never amortized
 against the treelet loop's adaptive cost, which shrinks with live-lane
 count. The full implementation (ops/grouped.py, ops/pallas_cull.py,
 ops/pallas_grouped.py, RT_K1/K2/K2B tiers, RT_MT_PRECISION splits) is
-recoverable at git tag ``grouped-backend-final``.
+recoverable at commit ``a7d8d95^``.
 
-A classic batched per-ray BVH stack walk was tried first and measured
-~0.3 Mrays/s (no per-lane random access on TPU); see git history.
+A classic batched per-ray BVH stack walk was tried first, on an
+accelerator without per-lane random access; see git history.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """Treelet wavefront traversal -- the big-scene acceleration path.
 
-A per-ray BVH stack walk is hostile to TPU (no per-lane random access: node
-gathers measured ~0.3 Mrays/s). Instead the SAH tree is cut into *treelets*:
+This traversal was designed for an accelerator without per-lane random
+access, where a per-ray BVH stack walk is a chain of narrow node gathers;
+whether it beats a stack walk on the GPU is open (ROADMAP S5). The SAH tree
+is cut into *treelets*:
 maximal subtrees of <= TREELET_SLOTS primitives, which are CONTIGUOUS ranges
 of the reordered primitive table (a property of the build -- every subtree
 owns a contiguous range). Each treelet is padded to exactly TREELET_SLOTS
@@ -13,8 +15,8 @@ Traversal per bounce:
    VPU broadcasting, no gathers (T ~ N/128: 781 for practice7_3);
 2. iterate: each ray picks its nearest unprocessed hit treelet (masked
    argmin over (B, T)), fetches that treelet's geometry with
-   embedding-style wide-row gathers (jnp.take of (T, 128) component rows --
-   the one gather shape TPUs do at near-bandwidth), dense-tests all 128
+   embedding-style wide-row gathers (jnp.take of (T, 128) component
+   rows), dense-tests all 128
    slots, updates its best hit, and marks the treelet processed;
 3. stop when every ray's remaining treelets start beyond its best hit
    (the reference's pruning rule, src/bvh.rs:258-262, applied wavefront).
@@ -253,12 +255,10 @@ def nearest_hit_treelet(
     # --- phase 1: up to R0 full-batch rounds (covers ~p95 of rays) ---
     import os as _os
 
-    # R0/CAPDIV defaults from the round-5 session-4 hardware sweep
-    # (practice7_3 e2e, _probes/out/ab_straggler.jsonl): (4, 32) = 4.31
-    # Mrays/s vs (3, 16) = 4.15; each knob alone is neutral-to-negative
-    # (R0=2: 2.86, R0=5: 3.80, CAPDIV=8: 3.75, CAPDIV=32 alone: 4.15) --
-    # one extra full round drains most stragglers, and the remaining few
-    # drain cheaper through narrower waves.
+    # R0/CAPDIV defaults: starting values from a sweep on the accelerator
+    # this program was first tuned on, awaiting a re-sweep on the GPU
+    # (ROADMAP S5). One extra full round drains most stragglers, and the
+    # remaining few drain cheaper through narrower waves.
     R0 = int(_os.environ.get("RT_TREELET_R0", "4"))
 
     def p1_cond(carry):
@@ -280,9 +280,8 @@ def nearest_hit_treelet(
     # inner loop, and marks them done; leftover stragglers take the next
     # wave. Late rounds therefore charge cap lanes, never the whole
     # wavefront, at ANY straggler count (the round-3 single-compaction
-    # design fell back to full-width rounds when stragglers exceeded cap;
-    # cap/16 waves measured 44 vs 55 ms/262k-bounce on practice7_3
-    # bounce rays vs the old cap/8 single shot). ---
+    # design fell back to full-width rounds when stragglers exceeded
+    # cap). ---
     cap = max(b // int(_os.environ.get("RT_TREELET_CAPDIV", "32")), 1024)
 
     def waves_left(st):

@@ -1,13 +1,14 @@
 """Struct-of-arrays 3-vector math.
 
-TPU-first layout: a ``Vec3`` is a NamedTuple of three same-shaped arrays
-(x, y, z). For a batch of B rays each component is a ``(B,)`` array, so the
-ray batch occupies the 8x128 VPU lanes directly -- no ``(..., 3)`` trailing
-axis that would waste 125/128 of a lane tile or force relayouts.
+Struct-of-arrays layout: a ``Vec3`` is a NamedTuple of three same-shaped
+arrays (x, y, z). For a batch of B rays each component is a contiguous
+``(B,)`` array -- no ``(..., 3)`` trailing axis that would force strided
+access or relayouts.
 
 Replaces the reference's nalgebra ``Vector3<f64>`` usage throughout
 (reference: src/geometry.rs:9, everywhere). All math is f32 (the reference is
-f64 -- src/geometry.rs:5 -- but TPU f64 is emulated; see SURVEY.md section 7).
+f64 -- src/geometry.rs:5 -- but f64 is slow or emulated on accelerators; see
+SURVEY.md section 7).
 """
 
 from __future__ import annotations

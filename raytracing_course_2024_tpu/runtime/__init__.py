@@ -1,4 +1,6 @@
-from .image_io import read_ppm, write_png, write_ppm
+from .image_io import read_png, read_ppm, write_png, write_ppm
 from .render import Renderer, render_scene
 
-__all__ = ["Renderer", "render_scene", "read_ppm", "write_png", "write_ppm"]
+__all__ = [
+    "Renderer", "render_scene", "read_png", "read_ppm", "write_png", "write_ppm",
+]

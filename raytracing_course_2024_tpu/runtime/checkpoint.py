@@ -19,7 +19,7 @@ import numpy as np
 
 from .render import Renderer
 
-log = logging.getLogger("rt_tpu")
+log = logging.getLogger("rt")
 
 
 def scene_fingerprint(renderer) -> str:

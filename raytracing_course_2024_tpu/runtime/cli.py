@@ -16,6 +16,7 @@ import logging
 import sys
 import time
 
+from .. import enable_compile_cache
 from ..scene import load_scene
 from .image_io import write_png, write_ppm
 from .render import render_scene
@@ -25,7 +26,7 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     # reference logs Debug to out.log (src/main.rs:29-34); scope it to our
     # logger so jax's internal debug logging doesn't flood the file
-    log = logging.getLogger("rt_tpu")
+    log = logging.getLogger("rt")
     log.setLevel(logging.DEBUG)
     log.addHandler(logging.FileHandler("out.log", mode="w"))
     log.addHandler(logging.StreamHandler())
@@ -38,6 +39,7 @@ def main(argv=None) -> int:
     out_ppm = argv[4]
     out_png = argv[5] if len(argv) > 5 else None
 
+    enable_compile_cache()
     desc = load_scene(scene_path, width, height, samples)
     print(
         f"Scene finite primitives: {len(desc.primitives)}, "

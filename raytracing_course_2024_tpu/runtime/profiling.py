@@ -2,7 +2,7 @@
 
 The reference's only perf tooling is a wall-clock print around render_scene
 (src/main.rs:54-58) and an indicatif progress bar (src/rendering.rs:46).
-Here (SURVEY.md section 5): a jax.profiler trace context for TPU timelines,
+Here (SURVEY.md section 5): a jax.profiler trace context for device timelines,
 and a RenderStats record computed from the instrumented integrator (exact
 path-vertex counts, the Mrays/s unit of the benchmark).
 """

@@ -30,9 +30,15 @@ from .types import (
     SceneStatics,
 )
 
-# Default location of the course scene fixtures (the reference's data files,
-# mounted read-only). Override with RT_SCENES_DIR.
-SCENES_DIR = os.environ.get("RT_SCENES_DIR", "/root/reference/scenes")
+# Default scene directory: the checkout's scenes/ (the generated stand-ins,
+# scenes/gen_stand_ins.py). Override with RT_SCENES_DIR.
+SCENES_DIR = os.environ.get(
+    "RT_SCENES_DIR",
+    os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        "scenes",
+    ),
+)
 
 
 def load_scene(path: str, width: int = 0, height: int = 0, samples: int = 0):

@@ -246,30 +246,6 @@ def build_scene_arrays(desc: SceneDesc, dtype=np.float32):
             or (num_planes and np.isin(
                 arrays.pl_mkind[:num_planes], (MIRROR, DIELECTRIC)).any())
         ),
-        mega_spec=_mega_spec(arrays, n, num_planes, rotation, ident),
     )
     return build_packs(arrays), statics
 
-
-def _mega_spec(arrays, n, num_planes, rotation, ident) -> tuple:
-    """Static per-entry (kind, rotated, mkind) spec of the unified geo table
-    the fused-bounce megakernel unrolls over (ops/pallas_bounce.py): finite
-    primitives first, then real planes (kind 3). Empty for big scenes --
-    the spec rides SceneStatics into jit static args, so it must stay
-    small."""
-    from ..ops.pallas_intersect import MAX_PRIMS
-
-    if n + num_planes > MAX_PRIMS:
-        return ()
-    spec = []
-    ptype = np.asarray(arrays.ptype)
-    mkind = np.asarray(arrays.mkind)
-    for i in range(n):
-        rotated = bool(np.abs(rotation[i] - ident).max() > 1e-7)
-        spec.append((int(ptype[i]), rotated, int(mkind[i])))
-    pl_rot = np.asarray(arrays.pl_rotation)
-    pl_mk = np.asarray(arrays.pl_mkind)
-    for p in range(num_planes):
-        rotated = bool(np.abs(pl_rot[p] - ident).max() > 1e-7)
-        spec.append((3, rotated, int(pl_mk[p])))
-    return tuple(spec)

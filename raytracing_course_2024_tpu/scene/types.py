@@ -1,7 +1,7 @@
 """Scene data model: host-side description + device-side SoA arrays.
 
 The reference keeps an AoS ``Vec<Primitive>`` with boxed shapes and per-object
-transforms (reference: src/scene.rs:14-39, src/geometry.rs:27-46). A TPU
+transforms (reference: src/scene.rs:14-39, src/geometry.rs:27-46). An accelerator
 renderer wants flat struct-of-arrays with static shapes, so a scene becomes:
 
 * ``SceneDesc``   -- host-side (numpy) list-of-primitives produced by parsers;
@@ -248,9 +248,3 @@ class SceneStatics(NamedTuple):
     light_types: tuple = ()  # per real light: TRI / BOX / ELLIPSOID
     light_rotated: tuple = ()  # per real light: non-identity rotation?
     any_delta: bool = False  # any MIRROR/DIELECTRIC material (incl. planes)
-    # fused-bounce megakernel spec (ops/pallas_bounce.py): one static
-    # (kind, rotated, mkind) triple per entry of the unified geo table
-    # (finite prims then real planes; kind 3 = plane), populated only for
-    # small scenes (num_prims + num_planes <= 128) so big-scene statics
-    # stay cheap to hash as a jit static argument. () = ineligible.
-    mega_spec: tuple = ()

@@ -33,7 +33,7 @@ SECTIONS = [  # (name, byte_start, V, I)
 doc = {
     "asset": {
         "version": "2.0",
-        "generator": "rt-tpu practice6_1 wrapper reconstruction (see gen_practice6_1.py)",
+        "generator": "practice6_1 wrapper reconstruction (see gen_practice6_1.py)",
     },
     "scene": 0,
     "extensionsUsed": ["KHR_materials_emissive_strength"],

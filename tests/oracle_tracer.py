@@ -481,3 +481,42 @@ class Oracle:
                 img[y, x] = mean
                 var[y, x] = np.maximum(acc2 / spp - mean * mean, 0.0)
         return img, var
+
+
+def parity_stats(p_img, o_img, o_var, oracle_spp, prod_spp) -> dict:
+    """Monte-Carlo z-scores of a production image against the oracle's.
+
+    The tolerance this feeds is statistical, not a rounding bound: sigma
+    is the oracle's own per-pixel sample variance over both sample counts.
+    Returns the median |z| per pixel, the share of 4x4-block z-scores
+    under 8 (fireflies dilute in a block, structured errors do not), and
+    the per-channel mean difference beside its sigma."""
+    sigma2 = o_var / oracle_spp + o_var / prod_spp
+    z = (p_img - o_img) / np.sqrt(np.maximum(sigma2, 1e-8))
+    h, w, _ = o_img.shape
+    bh, bw = h // 4, w // 4
+
+    def blocks(a):
+        return a[: bh * 4, : bw * 4].reshape(bh, 4, bw, 4, 3).mean(axis=(1, 3))
+
+    bz = (blocks(p_img) - blocks(o_img)) / np.sqrt(
+        np.maximum(blocks(sigma2) / 16.0, 1e-8)
+    )
+    return {
+        "median_abs_z": float(np.median(np.abs(z))),
+        "block_z_under_8": float((np.abs(bz) < 8.0).mean()),
+        "max_block_z": float(np.abs(bz).max()),
+        "mean_diff": np.abs(p_img.mean(axis=(0, 1)) - o_img.mean(axis=(0, 1))),
+        "mean_sigma": np.sqrt(sigma2.sum(axis=(0, 1))) / (h * w),
+    }
+
+
+def parity_ok(st: dict) -> bool:
+    """The criteria of tests/test_oracle_parity.py: median |z| < 1.6, more
+    than 97% of block z-scores under 8, channel means within 6 sigma +
+    5e-3."""
+    return bool(
+        st["median_abs_z"] < 1.6
+        and st["block_z_under_8"] > 0.97
+        and (st["mean_diff"] < 6.0 * st["mean_sigma"] + 5e-3).all()
+    )

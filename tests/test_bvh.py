@@ -113,7 +113,7 @@ def test_bvh_matches_dense_soup(rng):
 
 
 def test_bvh_matches_dense_cornell(scenes_dir, rng):
-    desc = load_scene(scene_path("practice7_1.gltf"), 16, 16, 1)
+    desc = load_scene(scene_path("cornell_box.gltf"), 16, 16, 1)
     arrays, statics = build_scene_arrays(desc)
     arrays = attach_bvh(arrays, statics)
     validate_treelets(arrays, statics)

@@ -80,7 +80,7 @@ def test_golden_catches_spatial_errors(goldens):
 def test_backend_agreement(scenes_dir):
     """Dense and treelet backends must agree within MC noise on the same
     scene (different estimators would indicate a traversal bug)."""
-    desc = load_scene(scene_path("practice7_1.gltf"), 48, 27, 32)
+    desc = load_scene(scene_path("cornell_box.gltf"), 48, 27, 32)
     # identical sampling order + identical hit results => identical images;
     # engine pinned to "batch" because the wavefront engine keys its RNG by
     # work item (a different stream); its own backend-agreement test lives

@@ -18,7 +18,7 @@ import pytest
 from raytracing_course_2024_tpu.runtime.render import Renderer
 from raytracing_course_2024_tpu.scene import parse_text_scene
 
-from oracle_tracer import Oracle
+from oracle_tracer import Oracle, parity_ok, parity_stats
 
 MINI_SCENE = """
 DIMENSIONS 16 12
@@ -68,31 +68,11 @@ def _compare(desc, oracle_spp, prod_spp, seed=0):
     # and the estimator under test is engine-independent
     r = Renderer(desc, faithful=True, max_tries=16, engine="batch")
     p_img = r.render_radiance(seed=seed, samples=prod_spp)
-
-    sigma2 = o_var / oracle_spp + o_var / prod_spp
-    sigma = np.sqrt(np.maximum(sigma2, 1e-8))
-    z = (p_img - o_img) / sigma
-    med = np.median(np.abs(z))
-    assert med < 1.6, med
-    # per-pixel z has a firefly tail (a low-spp oracle pixel that missed a
-    # rare bright path underestimates its own variance), so the spatial
-    # check averages 4x4 blocks -- fireflies dilute, structured errors
-    # (flipped normals, wrong pdfs, shifted geometry) do not
-    h, w, _ = o_img.shape
-    bh, bw = h // 4, w // 4
-
-    def blocks(a):
-        return a[: bh * 4, : bw * 4].reshape(bh, 4, bw, 4, 3).mean(axis=(1, 3))
-
-    bz = (blocks(p_img) - blocks(o_img)) / np.sqrt(
-        np.maximum(blocks(sigma2) / 16.0, 1e-8)
-    )
-    assert (np.abs(bz) < 8.0).mean() > 0.97, np.abs(bz).max()
-    # channel means: sigma of the mean over all pixels
-    n_pix = h * w
-    mean_sigma = np.sqrt(sigma2.sum(axis=(0, 1))) / n_pix
-    mean_diff = np.abs(p_img.mean(axis=(0, 1)) - o_img.mean(axis=(0, 1)))
-    assert (mean_diff < 6.0 * mean_sigma + 5e-3).all(), (mean_diff, mean_sigma)
+    st = parity_stats(p_img, o_img, o_var, oracle_spp, prod_spp)
+    assert st["median_abs_z"] < 1.6, st
+    assert st["block_z_under_8"] > 0.97, st
+    assert (st["mean_diff"] < 6.0 * st["mean_sigma"] + 5e-3).all(), st
+    assert parity_ok(st)
 
 
 def test_oracle_mini_scene_all_materials():
@@ -104,11 +84,12 @@ def test_oracle_mini_scene_all_materials():
 
 @pytest.mark.slow
 def test_oracle_cornell_gltf(scenes_dir):
-    """practice7_1 (glTF Cornell box, PBR materials, emissive light)."""
+    """The Cornell box stand-in for practice7_1 (glTF, PBR materials,
+    emissive light)."""
     from raytracing_course_2024_tpu.scene import load_scene
     from conftest import scene_path
 
-    desc = load_scene(scene_path("practice7_1.gltf"), 12, 8, 16)
+    desc = load_scene(scene_path("cornell_box.gltf"), 12, 8, 16)
     _compare(desc, oracle_spp=24, prod_spp=384)
 
 
@@ -127,12 +108,13 @@ def test_oracle_smooth_mesh():
 
 @pytest.mark.slow
 def test_oracle_big_mesh(scenes_dir):
-    """practice7_3 (99,950-triangle organic mesh): the estimator-level
-    anchor for the big-scene class where the treelet traversal
-    machinery lives. The oracle takes its vectorized-dense f64 scan
+    """The generated mesh_bvh.gltf (81,932 triangles, practice7_3's
+    scale; ``python scenes/gen_stand_ins.py`` writes it): the
+    estimator-level anchor for the big-scene class where the treelet
+    traversal machinery lives. The oracle takes its vectorized-dense f64 scan
     (still production-independent); production runs the BVH backend."""
     from raytracing_course_2024_tpu.scene import load_scene
     from conftest import scene_path
 
-    desc = load_scene(scene_path("practice7_3.gltf"), 12, 8, 16)
+    desc = load_scene(scene_path("mesh_bvh.gltf"), 12, 8, 16)
     _compare(desc, oracle_spp=16, prod_spp=256)

@@ -1,6 +1,7 @@
 """Runtime subsystems: checkpoint/resume, stats, image IO round trips."""
 
 import numpy as np
+import pytest
 
 from raytracing_course_2024_tpu.runtime.checkpoint import render_with_checkpoints
 from raytracing_course_2024_tpu.runtime.image_io import read_ppm, write_ppm
@@ -120,3 +121,40 @@ def test_ppm_roundtrip(tmp_path, rng):
     write_ppm(path, img)
     back = read_ppm(path)
     assert np.array_equal(img, back)
+
+
+def test_png_roundtrip_matches_ppm(tmp_path, rng):
+    """The stdlib PNG writer's pixels read back equal to the PPM's."""
+    from raytracing_course_2024_tpu.runtime.image_io import read_png, write_png
+
+    img = rng.integers(0, 255, (7, 9, 3), dtype=np.uint8)
+    write_ppm(str(tmp_path / "x.ppm"), img)
+    write_png(str(tmp_path / "x.png"), img)
+    assert np.array_equal(read_png(str(tmp_path / "x.png")),
+                          read_ppm(str(tmp_path / "x.ppm")))
+
+
+@pytest.mark.parametrize("env_dir", [True, False], ids=["env", "default"])
+def test_compile_cache_placement(tmp_path, monkeypatch, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is left to JAX; otherwise the
+    cache goes to the fixed in-checkout directory."""
+    import os
+
+    import jax
+
+    import raytracing_course_2024_tpu as rt
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_dir:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            assert rt.enable_compile_cache() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            path = rt.enable_compile_cache()
+            repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            assert path == os.path.join(repo, ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -123,26 +123,32 @@ def test_render_scene_auto_shards():
     assert img.max() > 10
 
 
-def test_sharded_with_pallas_dense_kernel(scenes_dir):
-    """All-triangle small scenes + shard_map(check_vma=True): on TPU the
-    compiled Pallas kernel declares output vma via out_shape; off-TPU
-    (here) interpret mode can't carry vma, so the tracer must fall back to
-    the XLA sweep instead of tripping the checker (jax 0.9 rejects even a
-    literal constant inside an interpreted kernel body under check_vma)."""
+def test_sharded_with_pallas_dense_kernel(scenes_dir, monkeypatch):
+    """A kernel-eligible scene (small, all-triangle: ``tri_pack`` set) under
+    shard_map(check_vma=True). On the CPU the dense path takes the XLA
+    sweep, so the SPMD frame renders with no Pallas call at all; on the GPU
+    the compiled kernel declares its outputs' vma via out_shape
+    (``chip_smoke.py --four-gpus`` runs that case)."""
     from conftest import scene_path
+    from raytracing_course_2024_tpu.ops import pallas_intersect as PI
     from raytracing_course_2024_tpu.ops.camera import camera_arrays
     from raytracing_course_2024_tpu.scene import build_scene_arrays, load_scene
 
-    desc = load_scene(scene_path("practice7_1.gltf"), 32, 16, 4)
+    desc = load_scene(scene_path("cornell_box.gltf"), 32, 16, 4)
     arrays, statics = build_scene_arrays(desc)
-    assert arrays.tri_pack is not None  # pallas-eligible
+    assert arrays.tri_pack is not None  # kernel-eligible
     arrays = jax.tree.map(jnp.asarray, arrays)
     cam = camera_arrays(desc.settings.camera)
     cfg = TraceConfig(ray_depth=3, bg_color=(0, 0, 0))
-    mesh = make_mesh(4, 2)
+
+    def forbidden(*a, **k):
+        raise AssertionError("Pallas kernel reached from a CPU program")
+
+    monkeypatch.setattr(PI, "pallas_dense_nearest", forbidden)
     img = hw3(
         render_frame_sharded(
-            jax.random.PRNGKey(1), arrays, statics, cam, cfg, 32, 16, 4, mesh
+            jax.random.PRNGKey(1), arrays, statics, cam, cfg, 32, 16, 4,
+            make_mesh(4, 2),
         )
     )
     assert img.shape == (16, 32, 3)
@@ -210,7 +216,7 @@ def test_multihost_mesh_layout():
         assert all(d.process_index == 0 for d in arr[row])
     for row in range(2, 4):
         assert all(d.process_index == 1 for d in arr[row])
-    # spp neighbors always share a process (pmean rides ICI)
+    # spp neighbors always share a process (pmean stays intra-host)
     for row in arr:
         assert len({d.process_index for d in row}) == 1
 
